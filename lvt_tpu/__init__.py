@@ -1,11 +1,11 @@
-"""lvt_tpu — a TPU-native visual odometry framework.
+"""lvt_tpu — a visual odometry framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the LVT
-("Lightweight Visual Tracking") reference system (see /root/reference):
-real-time feature-based stereo and RGB-D visual odometry against a rolling
-local map of 3D points, with motion-only bundle adjustment for the pose.
+A from-scratch JAX/XLA re-design of the capabilities of the LVT
+("Lightweight Visual Tracking") reference system: real-time feature-based
+stereo and RGB-D visual odometry against a rolling local map of 3D points,
+with motion-only bundle adjustment for the pose.
 
-Design principles (TPU-first, not a port):
+Design principles (accelerator-first, not a port):
   * Fixed shapes everywhere: keypoints padded to a static capacity with
     validity masks; the local map is a fixed-capacity structure-of-arrays.
   * One jitted ``track_step(state, frame) -> (state, pose, metrics)`` is the

@@ -3,7 +3,7 @@
 The reference ships a C-interface shared library around ``lvt_system``
 (lvt/src/lvt_c.h:57-62, lvt/src/lvt_c.cpp:33-148): opaque handle, create
 from a YAML config + sensor enum, track on raw ``unsigned char*`` grayscale
-buffers returning R[3][3]/t[3], and a status query. The TPU-native
+buffers returning R[3][3]/t[3], and a status query. This framework's
 equivalent keeps that exact C surface (``lvt_tpu/native/lvt_c.cpp`` embeds
 CPython and forwards here) so existing C/C++ integrations of the reference
 can switch by relinking.

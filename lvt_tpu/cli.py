@@ -278,6 +278,11 @@ def main(argv=None) -> int:
     b.set_defaults(fn=run_bench)
 
     args = p.parse_args(argv)
+    from lvt_tpu import runtime
+
+    runtime.enable_compile_cache()
+    dev = runtime.device_summary()
+    print(f"device: {dev['platform']} {dev['kind']} x{dev['count']}")
     return args.fn(args)
 
 

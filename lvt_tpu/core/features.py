@@ -1,6 +1,6 @@
 """Fixed-capacity per-frame feature container.
 
-TPU-native equivalent of the reference's ``lvt_image_features_struct``
+Equivalent of the reference's ``lvt_image_features_struct``
 (lvt/src/lvt_image_features_struct.h:37-88): a structure-of-arrays padded to
 the static keypoint capacity with a validity mask. The 25px spatial hash grid
 of the reference has no equivalent here — dense masked Hamming matrices

@@ -1,6 +1,6 @@
 """Local-map maintenance as masked fixed-shape array ops.
 
-TPU-native re-design of the reference's std::vector surgery
+Re-design of the reference's std::vector surgery
 (lvt/src/lvt_local_map.cpp): insertion becomes a masked scatter into free
 slots, culling clears validity bits, staged-point promotion moves rows
 between two fixed-capacity stores. No compaction, no reallocation — the

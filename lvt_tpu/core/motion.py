@@ -1,6 +1,6 @@
 """Constant-velocity motion model as a pure pytree transition.
 
-TPU-native equivalent of the reference's ``lvt_motion_model``
+Equivalent of the reference's ``lvt_motion_model``
 (lvt/src/lvt_motion_model.cpp:26-65): linear velocity smoothed 50/50 with the
 previous velocity; angular velocity as the quaternion difference slerp'd 0.5
 toward the previous angular velocity; both integrated one step ahead.

@@ -1,6 +1,6 @@
 """VO state pytrees: fixed-capacity point stores and the full VOState.
 
-TPU-native equivalent of the reference's mutable object graph
+Equivalent of the reference's mutable object graph
 (lvt_local_map's std::vector<lvt_map_point> map + staged arrays,
 lvt/src/lvt_local_map.h:64-85; lvt_system's pose/state-machine/match-window
 members, lvt/src/lvt_system.h:92-108). Everything is a fixed-shape

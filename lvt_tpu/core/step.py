@@ -1,6 +1,6 @@
 """The jitted per-frame tracking step — the unit of execution.
 
-TPU-native re-design of the reference's per-frame pipeline
+Re-design of the reference's per-frame pipeline
 (lvt_system::track -> perform_tracking, lvt/src/lvt_system.cpp:157-306, and
 lvt_local_map's matching/staging/triangulation calls): the whole frame —
 feature extraction, motion prediction, map matching, LM PnP, counter
@@ -77,28 +77,6 @@ def _image_bounds(config: VOConfig) -> tuple[float, float, float, float]:
     )
 
 
-def _use_matching_kernel(config: VOConfig, site: str = "mrs") -> bool:
-    # None = auto: on for TPU backends (see the history note on
-    # config.use_pallas_matching). `site` identifies the call site (m/r/s,
-    # see config.pallas_matching_sites) so the kernel can be enabled
-    # per-site by the TPU bisection scripts.
-    if config.use_pallas_matching is None:
-        from lvt_tpu.backend import is_tpu_backend
-
-        enabled = is_tpu_backend()
-    else:
-        enabled = config.use_pallas_matching
-    return enabled and any(s in config.pallas_matching_sites for s in site)
-
-
-def _use_mxu_hamming(config: VOConfig) -> bool:
-    if config.use_mxu_hamming is not None:
-        return config.use_mxu_hamming
-    from lvt_tpu.backend import is_tpu_backend
-
-    return is_tpu_backend()
-
-
 def _camera_kwargs(config: VOConfig) -> dict:
     min_x, max_x, min_y, max_y = _image_bounds(config)
     return dict(
@@ -138,8 +116,7 @@ def _triangulate_new_points(
         abs_threshold=config.descriptor_matching_threshold,
         img_rows=config.img_height,
         dist=row_dist,
-        use_kernel=_use_matching_kernel(config, "r"),
-        use_mxu=_use_mxu_hamming(config),
+        matmul=config.hamming_matmul,
     )
     k = left.kp.shape[0]
     uv_right = right.kp[jnp.clip(rm.right_idx, 0, k - 1)]
@@ -187,7 +164,6 @@ def _staged_update(
     """
     cam = _camera_kwargs(config)
     k = feats.kp.shape[0]
-    use_kernel = _use_matching_kernel(config, "s")
     w2c = se3.world_to_camera(pose)
     pts_cam = se3.transform_points(w2c, staged.pos)
     uv = se3.project_points(pts_cam, config.fx, config.fy, config.cx, config.cy)
@@ -196,11 +172,11 @@ def _staged_update(
         cam["min_x"], cam["max_x"], cam["min_y"], cam["max_y"],
     )
     dist = hamming.hamming_matrix(staged.desc, feats.desc,
-                                  use_mxu=_use_mxu_hamming(config))
+                                  matmul=config.hamming_matmul)
     (d1, d2, best, n_cand), _ = matching.dual_radius_top2(
         dist, uv, visible, feats.kp,
         feats.valid & jnp.logical_not(feature_matched),
-        config.tracking_radius, config.tracking_radius, use_kernel,
+        config.tracking_radius, config.tracking_radius,
     )
     idx = hamming.accept_matches(
         d1, d2, best, n_cand,
@@ -361,7 +337,7 @@ def _track_branch(
     map/staged stores are blocks of a mesh-sharded whole: feature-space
     arrays stay replicated, per-point work is local, and the cross-shard
     quantities (match counts, one-to-one claims, PnP normal equations, map
-    sizes) reduce over ICI with psum/pmin inside the enclosing shard_map
+    sizes) reduce over the mesh with psum/pmin inside the enclosing shard_map
     (parallel/sharded_stream.py).
 
     Pipeline stages carry jax.named_scope markers so profiler traces
@@ -387,8 +363,7 @@ def _track_branch(
             abs_threshold=config.descriptor_matching_threshold,
             retry_min_matches=config.n_matches_threshold,
             axis_name=axis_name,
-            use_kernel=_use_matching_kernel(config, "m"),
-            use_mxu=_use_mxu_hamming(config),
+            matmul=config.hamming_matmul,
             **cam,
         )
     matches_count = mm.matches_count
@@ -454,7 +429,7 @@ def _track_branch(
     )
     row_dist = (
         hamming.hamming_matrix(left.desc, right.desc,
-                               use_mxu=_use_mxu_hamming(config))
+                               matmul=config.hamming_matmul)
         if want_ba_rm else None
     )
 
@@ -504,8 +479,7 @@ def _track_branch(
                 abs_threshold=config.descriptor_matching_threshold,
                 img_rows=config.img_height,
                 dist=row_dist,
-                use_kernel=_use_matching_kernel(config, "r"),
-                use_mxu=_use_mxu_hamming(config),
+                matmul=config.hamming_matmul,
             )
             r_idx = rm_ba.right_idx[jnp.clip(mm.match_idx, 0, k - 1)]
             obs_r_new = right.kp[jnp.clip(r_idx, 0, k - 1)]
@@ -657,8 +631,6 @@ def track_chunk_stereo(
 
     def body(s, frame):
         il, ir = frame
-        # uint8 frames pass through untouched: the Pallas perception kernel
-        # DMAs uint8 slabs and widens in VMEM (4x less HBM image traffic)
         s2, pose, metrics = _track_frame_stereo(s, il, ir, config)
         return s2, (pose, metrics)
 

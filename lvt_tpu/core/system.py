@@ -225,7 +225,7 @@ class VOSystem:
         dispatch (lax.scan inside the jit). Semantically identical to N
         `track` calls; returns (poses, metrics) with a leading N axis.
 
-        This is the TPU-native high-throughput path: the per-frame host
+        This is the high-throughput path: the per-frame host
         round-trip of the online mode disappears and the VOState stays on
         device across the whole chunk."""
         a = jnp.asarray(imgs1)
@@ -255,8 +255,7 @@ class VOSystem:
             self._last_metrics = None
             self._pending_chunk_metrics = metrics
         if self.metrics_recorder is not None:
-            # one host transfer per series for the whole chunk (VERDICT r3
-            # weak #6: per-frame slicing re-entered the host loop)
+            # one host transfer per series for the whole chunk
             self.metrics_recorder.record_chunk(metrics)
         return poses, metrics
 

@@ -1,6 +1,6 @@
 """Unit-quaternion operations as pure jnp functions (vmappable).
 
-TPU-native replacement for the Eigen quaternion usage throughout the
+Replacement for the Eigen quaternion usage throughout the
 reference (lvt/src/lvt_pose.h:34-98, lvt/src/lvt_motion_model.cpp:42-65).
 
 Convention: a quaternion is an array ``[..., 4]`` stored as ``(w, x, y, z)``

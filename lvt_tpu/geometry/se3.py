@@ -1,6 +1,6 @@
 """SE(3) poses and camera-projection helpers.
 
-TPU-native equivalent of the reference's ``lvt_pose`` / ``lvt_pose_utils``
+Equivalent of the reference's ``lvt_pose`` / ``lvt_pose_utils``
 (lvt/src/lvt_pose.h:51-98, lvt/src/lvt_pose.cpp:28-51). A pose is a small
 pytree of ``(position[3], quaternion[4])`` expressing the *camera-in-world*
 transform, exactly like the reference; all helpers are pure jnp and vmappable.
@@ -10,9 +10,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from lvt_tpu.geometry import quaternion as quat
+
+# Precision of every f32 contraction in geometry and the solvers: without
+# it XLA may run f32 products in TF32 on GPUs (about three decimal digits),
+# which moves poses, normal equations and triangulated depths.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class Pose(NamedTuple):
@@ -68,13 +74,14 @@ def world_to_camera(pose: Pose) -> jnp.ndarray:
     """World->camera transform [R^T | -R^T t] (3x4)
     (reference: lvt_pose.cpp:36-43)."""
     r_wc = jnp.swapaxes(quat.to_matrix(pose.q), -1, -2)
-    t_wc = -jnp.einsum("...ij,...j->...i", r_wc, pose.t)
+    t_wc = -jnp.einsum("...ij,...j->...i", r_wc, pose.t, precision=HIGHEST)
     return jnp.concatenate([r_wc, t_wc[..., :, None]], axis=-1)
 
 
 def transform_points(m34: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
     """Apply a [3x4] affine transform to points [..., 3]."""
-    return jnp.einsum("ij,...j->...i", m34[..., :3], pts) + m34[..., 3]
+    return (jnp.einsum("ij,...j->...i", m34[..., :3], pts, precision=HIGHEST)
+            + m34[..., 3])
 
 
 def project_points(

@@ -1,9 +1,10 @@
 """ctypes bindings for the native C++ data loader (PNG decode + prefetch).
 
-The shared library is built from lvt_tpu/native/png_loader.cpp (`make` in
-that directory; auto-built on first use when a compiler is present). All
-entry points degrade gracefully: callers fall back to OpenCV if the native
-loader is unavailable (lvt_tpu.io.datasets.imread_gray).
+The shared library is built from lvt_tpu/native/png_loader.cpp by `make`
+in that directory on first use in each process (a no-op when it is up to
+date), so a library left in the tree never stands in for the committed
+sources. All entry points degrade gracefully: callers fall back to OpenCV
+if the native loader is unavailable (lvt_tpu.io.datasets.imread_gray).
 """
 
 from __future__ import annotations
@@ -26,18 +27,15 @@ _build_attempted = False
 def _load_library():
     global _lib, _build_attempted
     with _lib_lock:
-        if _lib is not None:
+        if _lib is not None or _build_attempted:
             return _lib
-        if not os.path.exists(_LIB_PATH) and not _build_attempted:
-            _build_attempted = True
-            try:
-                subprocess.run(
-                    ["make", "-s"], cwd=_NATIVE_DIR, check=True,
-                    capture_output=True, timeout=120,
-                )
-            except Exception:
-                return None
-        if not os.path.exists(_LIB_PATH):
+        _build_attempted = True
+        try:
+            subprocess.run(
+                ["make", "-s", "liblvt_native.so"], cwd=_NATIVE_DIR,
+                check=True, capture_output=True, timeout=120,
+            )
+        except (OSError, subprocess.SubprocessError):
             return None
         lib = ctypes.CDLL(_LIB_PATH)
         lib.lvt_png_probe.argtypes = [

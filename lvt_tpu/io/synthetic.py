@@ -1,7 +1,7 @@
 """Synthetic 3D world renderer for dataset-free testing and benchmarking.
 
 The reference has no tests and validates only against datasets (SURVEY.md
-section 4); this module provides the synthetic-world integration harness the TPU
+section 4); this module provides the synthetic-world integration harness the
 framework is tested and benchmarked with when no dataset is on disk: a random
 3D point cloud rendered as Gaussian splats into stereo (or RGB-D) frames from
 a scripted camera trajectory, so the recovered trajectory can be compared
@@ -60,21 +60,46 @@ class SyntheticWorld:
         return poses
 
     # -- rendering ------------------------------------------------------
-    def render(self, r_c2w: np.ndarray, t_c2w: np.ndarray,
-               right: bool = False) -> np.ndarray:
-        """Render one grayscale frame with bilinear-positioned blobs."""
-        r_w2c = r_c2w.T
+    def _project(self, r_c2w, t_c2w, right=False, camera=None):
+        """Pixel positions (u, v), camera z and visibility of every point.
+
+        ``camera`` = (k_mat [3,3], dist (k1, k2, p1, p2, k3), r_rect [3,3])
+        renders through a raw (distorted, unrectified) camera whose
+        rectifying rotation r_rect maps raw to rectified coordinates; the
+        trajectory pose is then the rectified camera's. Default: the ideal
+        pinhole camera of this world."""
         t = t_c2w.copy()
         if right:
             t = t + r_c2w @ np.array([self.baseline, 0.0, 0.0])
-        p_cam = (self.points - t) @ r_w2c.T
+        p_cam = (self.points - t) @ r_c2w          # world -> camera
+        if camera is not None:
+            p_cam = p_cam @ camera[2]              # rectified -> raw
         z = p_cam[:, 2]
         vis = z > 0.5
-        u = self.fx * p_cam[:, 0] / np.where(vis, z, 1.0) + self.cx
-        v = self.fy * p_cam[:, 1] / np.where(vis, z, 1.0) + self.cy
+        zs = np.where(vis, z, 1.0)
+        if camera is None:
+            u = self.fx * p_cam[:, 0] / zs + self.cx
+            v = self.fy * p_cam[:, 1] / zs + self.cy
+        else:
+            k_mat, (k1, k2, p1, p2, k3) = camera[0], camera[1]
+            xn = p_cam[:, 0] / zs
+            yn = p_cam[:, 1] / zs
+            r2 = xn * xn + yn * yn
+            radial = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+            xd = xn * radial + 2 * p1 * xn * yn + p2 * (r2 + 2 * xn * xn)
+            yd = yn * radial + p1 * (r2 + 2 * yn * yn) + 2 * p2 * xn * yn
+            u = k_mat[0, 0] * xd + k_mat[0, 2]
+            v = k_mat[1, 1] * yd + k_mat[1, 2]
         m = 4
         vis &= (u > m) & (u < self.width - m) & (v > m) & (v < self.height - m)
+        return u, v, z, vis
 
+    def render(self, r_c2w: np.ndarray, t_c2w: np.ndarray,
+               right: bool = False, camera=None) -> np.ndarray:
+        """Render one grayscale frame with bilinear-positioned blobs
+        (``camera``: see _project)."""
+        u, v, _, vis = self._project(r_c2w, t_c2w, right, camera)
+        m = 4
         img = np.full((self.height, self.width), self.background, np.float32)
         ku = np.arange(-m, m + 1)
         for ui, vi, ii in zip(u[vis], v[vis], self.intensities[vis]):
@@ -86,17 +111,12 @@ class SyntheticWorld:
             img[y0 - m : y0 + m + 1, x0 - m : x0 + m + 1] += ii * g
         return np.clip(img, 0.0, 255.0)
 
-    def render_depth(self, r_c2w: np.ndarray, t_c2w: np.ndarray) -> np.ndarray:
+    def render_depth(self, r_c2w: np.ndarray, t_c2w: np.ndarray,
+                     camera=None) -> np.ndarray:
         """Depth image: each blob's footprint takes its point's depth
         (nearest wins), background = 0 (invalid)."""
-        r_w2c = r_c2w.T
-        p_cam = (self.points - t_c2w) @ r_w2c.T
-        z = p_cam[:, 2]
-        vis = z > 0.5
-        u = self.fx * p_cam[:, 0] / np.where(vis, z, 1.0) + self.cx
-        v = self.fy * p_cam[:, 1] / np.where(vis, z, 1.0) + self.cy
+        u, v, z, vis = self._project(r_c2w, t_c2w, False, camera)
         m = 4
-        vis &= (u > m) & (u < self.width - m) & (v > m) & (v < self.height - m)
         depth = np.full((self.height, self.width), np.inf, np.float32)
         for ui, vi, zi in zip(u[vis], v[vis], z[vis]):
             x0, y0 = int(ui), int(vi)
@@ -105,14 +125,21 @@ class SyntheticWorld:
         depth[~np.isfinite(depth)] = 0.0
         return depth
 
-    def stereo_sequence(self, n_frames: int, **kw):
-        """Yields (img_left, img_right, (R_c2w, t_c2w)) per frame."""
+    def stereo_sequence(self, n_frames: int, cameras=None, **kw):
+        """Yields (img_left, img_right, (R_c2w, t_c2w)) per frame;
+        ``cameras`` = (left, right) raw cameras (see _project)."""
+        cl, cr = cameras if cameras is not None else (None, None)
         for r, t in self.trajectory(n_frames, **kw):
-            yield self.render(r, t), self.render(r, t, right=True), (r, t)
+            yield (self.render(r, t, camera=cl),
+                   self.render(r, t, right=True, camera=cr), (r, t))
 
-    def rgbd_sequence(self, n_frames: int, **kw):
+    def rgbd_sequence(self, n_frames: int, camera=None, **kw):
+        """Yields (img, depth, (R_c2w, t_c2w)); with a distorting
+        ``camera`` the depth map is registered to the distorted image, as
+        an RGB-D sensor's is."""
         for r, t in self.trajectory(n_frames, **kw):
-            yield self.render(r, t), self.render_depth(r, t), (r, t)
+            yield (self.render(r, t, camera=camera),
+                   self.render_depth(r, t, camera=camera), (r, t))
 
 
 # ---------------------------------------------------------------------------

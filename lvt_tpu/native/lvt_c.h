@@ -3,7 +3,7 @@
  * Drop-in equivalent of the reference's C ABI (lvt/src/lvt_c.h:55-62):
  * same five entry points, same signatures, same handle/status semantics,
  * so a C/C++ integration of the reference can switch by relinking against
- * liblvt_c.so. The implementation embeds CPython and drives the JAX/TPU
+ * liblvt_c.so. The implementation embeds CPython and drives the JAX
  * pipeline through lvt_tpu.capi.
  *
  * Requirements on the host process environment:

@@ -3,7 +3,7 @@
 // The reference delegates all image IO to OpenCV (cv::VideoCapture /
 // cv::imread in examples/*); this framework's runtime carries its own
 // dependency-free native loader so the host-side input pipeline (decode +
-// prefetch of stereo pairs) keeps the TPU fed without OpenCV. Exposed as a
+// prefetch of stereo pairs) keeps the device fed without OpenCV. Exposed as a
 // C ABI consumed via ctypes (lvt_tpu/io/native_loader.py).
 //
 // Supports the PNG subset the datasets use: 8/16-bit greyscale, 8-bit

@@ -86,7 +86,7 @@ class ValueRecorder:
         """Record a chunked StepMetrics pytree (leaves have a leading [N]
         frame axis) as N frames with ONE device->host transfer per series —
         NOT ~13 tiny per-frame slice ops × N (the overhead class the lazy
-        last_metrics fix removed from the dispatch path; VERDICT r3 weak #6).
+        last_metrics fix removed from the dispatch path).
         Equivalent per-row output to N record_step calls."""
         host = {
             series: np.asarray(getattr(metrics, field)).reshape(-1)
@@ -155,7 +155,7 @@ class TraceLog:
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str = "/tmp/lvt_tpu_profile"):
-    """jax.profiler trace around a region — the TPU-native replacement for
+    """jax.profiler trace around a region — the device-side replacement for
     the reference's wall-clock stage logs (view with xprof/tensorboard)."""
     import jax
 

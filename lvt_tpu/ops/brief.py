@@ -1,19 +1,19 @@
 """BRIEF-256 binary descriptors, bit-packed for Hamming matmuls.
 
-TPU-native replacement for OpenCV's ``xfeatures2d::BriefDescriptorExtractor``
+Replacement for OpenCV's ``xfeatures2d::BriefDescriptorExtractor``
 (used by the reference at lvt/src/lvt_image_features_handler.cpp:117,172):
 a 9x9 box-smoothed intensity is sampled at 256 fixed point pairs inside a
 48x48 patch around each keypoint; bit i = [S(p1_i) < S(p2_i)]. Descriptors
 are packed as 8 x uint32 (see lvt_tpu.ops.hamming).
 
 The OpenCV test pattern is a machine-generated table; we instead generate a
-pattern tuned to the TPU's execution model: 256 comparison pairs drawn from a
+pattern tuned to dense evaluation: 256 comparison pairs drawn from a
 **pool of 64 distinct sample points** (i.i.d. isotropic Gaussian with
 sigma = patch/5 clipped to the patch, per the BRIEF paper's best variant
 G II — Calonder et al., ECCV 2010). Sampling from a pool means a dense
 evaluation needs only 64 shifted copies of the smoothed image instead of 512
-(one per pair endpoint) — an 8x cut in the dominant VPU data movement of the
-perception kernel — while the 256 pairwise comparisons of 64 Gaussian
+(one per pair endpoint) — an 8x cut in the dominant data movement of the
+perception stage — while the 256 pairwise comparisons of 64 Gaussian
 samples retain ~log2(64!) ≈ 296 bits of ordering information (descriptor
 quality is validated at trajectory level by tests/test_parity_oracle.py).
 The pattern only needs to be *consistent across frames*, not identical to
@@ -32,9 +32,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from lvt_tpu.ops.patches import PATCH, PATCH_C0, PATCH_R0
+
 PATCH_SIZE = 32   # ORB-sized patch (OpenCV BRIEF uses 48; smaller patch +
 #                   box smoothing keeps discrimination and shrinks the
-#                   perception kernel's halo from 28 to 20 rows)
+#                   perception stencil's halo from 28 to 20 rows)
 KERNEL_SIZE = 9
 N_BITS = 256
 POOL_SIZE = 64    # distinct sample points shared by the 256 pairs
@@ -108,11 +110,8 @@ def dense_descriptor_planes(smooth: jnp.ndarray) -> jnp.ndarray:
     The 64 pool samples are materialized ONCE as statically-shifted copies
     of the smoothed image; the 256 pair comparisons then index into that
     pool and 32 comparisons OR-pack into one uint32 plane. Static shifts
-    fuse into one tiled VPU kernel with halos (compute-dense), so the
-    per-keypoint descriptor afterwards is a tiny 8-word gather — the
-    TPU-native replacement for 512 random scalar gathers per keypoint
-    (which profiled at ~20ms/frame) and for per-keypoint patch slicing
-    (which XLA serialized into a dynamic-slice loop, ~4ms/frame)."""
+    fuse into one stencil, so the per-keypoint descriptor afterwards is a
+    tiny 8-word gather instead of 512 scalar gathers per keypoint."""
     h, w = smooth.shape
     pad = _HALF + 1
     sp = jnp.pad(smooth, pad)
@@ -143,11 +142,8 @@ def descriptors_sparse(
 
     Bit-identical to gathering ``dense_descriptor_planes`` at the keypoints
     (same float comparisons on the same smoothed values): K*64 sample reads
-    instead of 256 comparisons for every pixel. Opt-in
-    (config.use_dense_brief=False): measured on v5e, the scattered [K, 64]
-    take lowers to ~10 ns/element and DROPPED the bench 538 -> 283 fps, so
-    the dense-planes kernel stays the TPU default (see BASELINE.md
-    gather-tax breakdown; scripts/bench_gather.py compares lowerings)."""
+    instead of 256 comparisons for every pixel (descriptor_mode
+    "sparse")."""
     h, w = smooth.shape
     x = jnp.round(kp[:, 0]).astype(jnp.int32)
     y = jnp.round(kp[:, 1]).astype(jnp.int32)
@@ -176,8 +172,6 @@ def descriptors_sparse(
 def _pool_onehot() -> np.ndarray:
     """[PATCH*PATCH, POOL_SIZE] f32 one-hot sampling matrix: column s
     selects patch pixel (PATCH_R0 + dy_s, PATCH_C0 + dx_s)."""
-    from lvt_tpu.ops.patches_pallas import PATCH, PATCH_C0, PATCH_R0
-
     m = np.zeros((PATCH * PATCH, POOL_SIZE), np.float32)
     for s, (dx, dy) in enumerate(sample_pool()):
         m[(PATCH_R0 + int(dy)) * PATCH + (PATCH_C0 + int(dx)), s] = 1.0
@@ -204,9 +198,9 @@ def descriptors_from_patches(
     img_h: int,
     img_w: int,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """BRIEF-256 from per-keypoint smooth patches (ops/patches_pallas) as
-    dense linear algebra: pool sampling and pair-endpoint replication are
-    static one-hot matmuls — MXU work instead of scattered gathers.
+    """BRIEF-256 from per-keypoint smooth patches (ops/patches) as dense
+    linear algebra: pool sampling and pair-endpoint replication are static
+    one-hot matmuls instead of scattered gathers.
 
     Evaluated at ``Precision.HIGHEST`` the one-hot contractions are
     *bit-exact* f32 (each output accumulates exactly one value's bf16
@@ -236,8 +230,7 @@ def descriptors_from_planes(
     kp: jnp.ndarray,        # [K, 2] float32 (x, y)
     kp_valid: jnp.ndarray,  # [K] bool
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Gather per-keypoint descriptors from precomputed dense bit-planes
-    (shared by the XLA path and the fused Pallas perception kernel)."""
+    """Gather per-keypoint descriptors from precomputed dense bit-planes."""
     _, h, w = planes.shape
     x = jnp.round(kp[:, 0]).astype(jnp.int32)
     y = jnp.round(kp[:, 1]).astype(jnp.int32)
@@ -256,10 +249,8 @@ def descriptors_from_planes_flat(
     kp: jnp.ndarray,        # [K, 2] float32 (x, y)
     kp_valid: jnp.ndarray,  # [K] bool
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """descriptors_from_planes via ONE flat jnp.take per word axis —
-    measured 1.7x faster than the advanced-indexing gather on v5e
-    (scripts/bench_gather.py: 77 vs 132 us for one frame's 12.3k
-    elements); bit-identical output."""
+    """descriptors_from_planes via ONE flat jnp.take per word axis
+    (gather_mode "flat"); bit-identical output."""
     _, h, w = planes.shape
     x = jnp.round(kp[:, 0]).astype(jnp.int32)
     y = jnp.round(kp[:, 1]).astype(jnp.int32)
@@ -281,8 +272,7 @@ def descriptors_from_planes_slice8(
     """descriptors_from_planes with a slice-shaped gather: the planes are
     interleaved to [H, W*8] so each keypoint's 8 words are CONTIGUOUS and
     one vmapped dynamic_slice per keypoint replaces the scattered
-    8-element gather. Bit-identical output; on TPU contiguous-slice
-    gathers lower far better (scripts/bench_gather.py)."""
+    8-element gather (gather_mode "slice"). Bit-identical output."""
     _, h, w = planes.shape
     x = jnp.round(kp[:, 0]).astype(jnp.int32)
     y = jnp.round(kp[:, 1]).astype(jnp.int32)

@@ -1,6 +1,6 @@
 """Bit-packed binary descriptors and dense masked Hamming matching.
 
-TPU-native replacement for the reference's OpenCV ``BFMatcher(NORM_HAMMING)``
+Replacement for the reference's OpenCV ``BFMatcher(NORM_HAMMING)``
 masked 2-NN loops (lvt/src/lvt_image_features_struct.cpp:68-148). Instead of a
 25px spatial hash + per-query masked knnMatch, we compute one dense Hamming
 distance matrix (XOR + population count over 8 uint32 words = 256-bit BRIEF)
@@ -23,21 +23,19 @@ BIG = jnp.float32(1.0e9)
 
 
 def hamming_matrix(a: jnp.ndarray, b: jnp.ndarray,
-                   use_mxu: bool = False) -> jnp.ndarray:
+                   matmul: bool = False) -> jnp.ndarray:
     """Dense Hamming distance matrix between packed descriptors.
 
     a: [N, W] uint32, b: [K, W] uint32  ->  [N, K] int32.
 
     Default path: XOR + popcount, unrolled over the (static, small) word
     axis so XLA keeps a single [N, K] accumulator live instead of an
-    [N, K, W] intermediate. With ``use_mxu`` the descriptors unpack to
-    +-1 bfloat16 rows and the distance comes off the systolic array:
-    dot(s_a, s_b) = matches - mismatches = bits - 2*hamming, which is EXACT
-    (|dot| <= 256 and f32 accumulation; verified bit-identical in
-    tests/test_top2_pallas.py::test_mxu_hamming_is_exact) and turns the
-    O(N*K*W) VPU reduction into one
-    MXU matmul — the right trade on TPU for frame-sized N, K."""
-    if use_mxu:
+    [N, K, W] intermediate. With ``matmul`` the descriptors unpack to
+    +-1 bfloat16 rows and the distance is one matrix product on the
+    tensor cores: dot(s_a, s_b) = matches - mismatches = bits - 2*hamming,
+    which is EXACT (every partial sum is an integer with |dot| <= 256 and
+    the accumulation is f32; tests/test_hamming.py checks bit-identity)."""
+    if matmul:
         n_bits = a.shape[1] * 32
         dot = jax.lax.dot_general(
             _unpack_pm1(a), _unpack_pm1(b),
@@ -71,9 +69,8 @@ def masked_top2(
     dist: [Q, K] float or int, cand_mask: [Q, K] bool.
     Returns (d1, d2, best_idx, n_cand) each [Q].
 
-    Implemented as two min-reductions instead of lax.top_k — a k=2 selection
-    does not need the full bitonic sort XLA lowers top_k to on TPU; argmin +
-    one-hot mask + second min is pure VPU work.
+    Implemented as two min-reductions instead of lax.top_k — a k=2
+    selection needs no sort; argmin + one-hot mask + second min.
     """
     d = jnp.where(cand_mask, dist.astype(jnp.float32), BIG)
     d1 = jnp.min(d, axis=-1)

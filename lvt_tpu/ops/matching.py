@@ -1,6 +1,6 @@
 """Projection matching (map -> frame) and stereo row matching.
 
-TPU-native re-design of the reference's two matching hot loops:
+Re-design of the reference's two matching hot loops:
 
 * ``find_map_matches`` == lvt_local_map::find_matches
   (lvt/src/lvt_local_map.cpp:136-229): project every map point, build a
@@ -44,22 +44,9 @@ class MapMatchResult(NamedTuple):
     used_wide_radius: jnp.ndarray  # [] bool (the 2x-radius fallback fired)
 
 
-def dual_radius_top2(
-    dist, q_uv, q_valid, t_kp, t_valid, radius_a, radius_b,
-    use_kernel: bool,
-):
-    """Masked top-2 under two radius predicates from one distance matrix.
-
-    Kernel path: ops.top2_pallas (one VMEM pass, both radii). XLA path:
-    materialized masks + hamming.masked_top2 (identical semantics; kept for
-    CPU and as the oracle of tests/test_top2_pallas.py)."""
-    if use_kernel:
-        from lvt_tpu.ops.top2_pallas import masked_dual_top2
-
-        return masked_dual_top2(
-            dist, q_uv, q_valid, t_kp, t_valid,
-            r2a=float(radius_a) ** 2, r2b=float(radius_b) ** 2,
-        )
+def dual_radius_top2(dist, q_uv, q_valid, t_kp, t_valid, radius_a, radius_b):
+    """Masked top-2 under two radius predicates from one distance matrix
+    (materialized masks + hamming.masked_top2_int)."""
     diff = t_kp[None, :, :] - q_uv[:, None, :]
     dr2 = jnp.sum(diff * diff, axis=-1)
     base = q_valid[:, None] & t_valid[None, :]
@@ -94,8 +81,7 @@ def find_map_matches(
     abs_threshold: float,
     retry_min_matches: int,      # LVT_N_MATCHES_TH == 50
     axis_name: str | None = None,  # map points sharded over this mesh axis
-    use_kernel: bool = False,      # fused Pallas top-2 (opt-in)
-    use_mxu: bool = False,         # MXU matmul Hamming (auto on TPU)
+    matmul: bool = False,         # Hamming as a +-1 bf16 matrix product
 ) -> MapMatchResult:
     m = map_pos.shape[0]
     k = feats.kp.shape[0]
@@ -109,11 +95,11 @@ def find_map_matches(
 
     # one Hamming matrix serves both radius passes
     dist = hamming.hamming_matrix(map_desc, feats.desc,
-                                  use_mxu=use_mxu)  # [M, K]
+                                  matmul=matmul)  # [M, K]
 
     top2_narrow, top2_wide = dual_radius_top2(
         dist, uv, visible, feats.kp, feats.valid,
-        tracking_radius, 2 * tracking_radius, use_kernel,
+        tracking_radius, 2 * tracking_radius,
     )
     idx1, d1a, d2a = _accept_resolve(
         top2_narrow, ratio_threshold, abs_threshold, k, axis_name)
@@ -169,8 +155,7 @@ def row_match(
     abs_threshold: float,
     img_rows: int,
     dist: jnp.ndarray | None = None,  # optional precomputed Hamming [K, K]
-    use_kernel: bool = False,
-    use_mxu: bool = False,
+    matmul: bool = False,
 ) -> RowMatchResult:
     """Greedy epipolar row matching, vectorized.
 
@@ -191,25 +176,16 @@ def row_match(
     hi = jnp.minimum(y_l + vertical_search_radius, float(img_rows))
     if dist is None:
         dist = hamming.hamming_matrix(left.desc, right.desc,
-                                      use_mxu=use_mxu)
+                                      matmul=matmul)
 
-    if use_kernel:
-        from lvt_tpu.ops.top2_pallas import masked_dual_top2
-
-        window = jnp.stack([lo, hi], axis=-1)
-        (d1, d2, best, n_cand), _ = masked_dual_top2(
-            dist, window, query_ok, right.kp, right.valid,
-            r2a=0.0, r2b=0.0, row_mode=True,
-        )
-    else:
-        y_r = right.kp[:, 1]
-        cand = (
-            query_ok[:, None]
-            & right.valid[None, :]
-            & (y_r[None, :] >= lo[:, None])
-            & (y_r[None, :] <= hi[:, None])
-        )
-        d1, d2, best, n_cand = hamming.masked_top2_int(dist, cand)
+    y_r = right.kp[:, 1]
+    cand = (
+        query_ok[:, None]
+        & right.valid[None, :]
+        & (y_r[None, :] >= lo[:, None])
+        & (y_r[None, :] <= hi[:, None])
+    )
+    d1, d2, best, n_cand = hamming.masked_top2_int(dist, cand)
     idx = hamming.accept_matches(d1, d2, best, n_cand, ratio_threshold, abs_threshold)
     idx = hamming.resolve_one_to_one(idx, d1, k)
 

@@ -1,10 +1,11 @@
 """Batched stereo triangulation and RGB-D backprojection.
 
-TPU-native replacement for the reference's per-pair Eigen 4x3 Jacobi-SVD
+Replacement for the reference's per-pair Eigen 4x3 Jacobi-SVD
 linear-LS triangulation (lvt/src/lvt_local_map.cpp:258-329) and RGB-D depth
 backprojection (:231-256).
 
-Design notes (diverging from the reference where TPU idiom demands):
+Design notes (diverging from the reference where batched execution
+demands):
 
 * The reference solves the algebraic linear-LS system in *world* coordinates.
   A rigid change of coordinates transforms the system as A' = A*T, so the
@@ -29,6 +30,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from lvt_tpu.geometry import se3
+from lvt_tpu.geometry.se3 import HIGHEST
 
 
 class TriangulationResult(NamedTuple):
@@ -61,7 +63,8 @@ def _solve33(m: jnp.ndarray, b: jnp.ndarray, eps: float = 1e-20) -> jnp.ndarray:
         ],
         axis=-2,
     )
-    return jnp.einsum("...ij,...j->...i", adj, b) * inv_det[..., None]
+    return (jnp.einsum("...ij,...j->...i", adj, b, precision=HIGHEST)
+            * inv_det[..., None])
 
 
 def triangulate_stereo(
@@ -105,8 +108,8 @@ def triangulate_stereo(
     a4 = jnp.stack([zeros, zeros, b * ones, zeros], axis=-1)  # [N, 4]
 
     # min ||a3 X + a4||  ->  (a3^T a3) X = -a3^T a4
-    m33 = jnp.einsum("nij,nik->njk", a3, a3)
-    rhs = -jnp.einsum("nij,ni->nj", a3, a4)
+    m33 = jnp.einsum("nij,nik->njk", a3, a3, precision=HIGHEST)
+    rhs = -jnp.einsum("nij,ni->nj", a3, a4, precision=HIGHEST)
     pts_cam = _solve33(m33, rhs)  # [N, 3] left-camera frame
 
     finite = jnp.all(jnp.isfinite(pts_cam), axis=-1)

@@ -1,6 +1,6 @@
 """Lens distortion: point undistortion and image rectification remap.
 
-TPU-native replacement for the reference's uses of OpenCV
+Replacement for the reference's uses of OpenCV
 ``undistortPoints`` (RGB-D keypoints, lvt/src/lvt_image_features_handler.cpp:
 268-295; image bounds, lvt_local_map.cpp:87-122) and
 ``initUndistortRectifyMap`` + ``remap`` (EuRoC rectification,
@@ -64,13 +64,17 @@ def undistorted_image_bounds(
 ) -> tuple[float, float, float, float]:
     """(min_x, max_x, min_y, max_y) from the four undistorted image corners,
     the host-side analogue of lvt_local_map's ctor (lvt_local_map.cpp:87-122).
-    Returns plain floats for embedding as static config."""
+    Returns plain floats for embedding as static config; evaluated eagerly
+    even when called while a step is being traced."""
     if abs(k1) < 1e-5:
         return 0.0, float(width), 0.0, float(height)
-    corners = jnp.array(
-        [[0.0, 0.0], [width, 0.0], [0.0, height], [width, height]], jnp.float32
-    )
-    und = np.asarray(undistort_points(corners, fx, fy, cx, cy, k1, k2, p1, p2, k3))
+    with jax.ensure_compile_time_eval():
+        corners = jnp.array(
+            [[0.0, 0.0], [width, 0.0], [0.0, height], [width, height]],
+            jnp.float32,
+        )
+        und = np.asarray(
+            undistort_points(corners, fx, fy, cx, cy, k1, k2, p1, p2, k3))
     min_x = float(min(und[0, 0], und[2, 0]))
     max_x = float(max(und[1, 0], und[3, 0]))
     min_y = float(min(und[0, 1], und[1, 1]))

@@ -1,8 +1,8 @@
 """Device-mesh helpers — the framework's "distributed backend".
 
 The reference has no distributed runtime at all (SURVEY.md section 2: the only
-parallelism is one std::thread). The TPU-native answer to NCCL/MPI here is
-`jax.sharding.Mesh` + NamedSharding with XLA collectives over ICI:
+parallelism is one std::thread). The answer to NCCL/MPI here is
+`jax.sharding.Mesh` + NamedSharding with XLA collectives (NCCL on GPUs):
 independent camera streams shard over the `stream` axis; within a stream,
 map-point blocks shard over the `points` axis for the distributed-BA
 reduction (lvt_tpu.parallel.ba).

@@ -1,25 +1,25 @@
-"""Multi-host (multi-process) execution: config 4/5 across DCN.
+"""Multi-host (multi-process) execution: config 4/5 across hosts.
 
 The reference is a single process by construction (SURVEY.md scope notes);
-this module is the framework's `jax.distributed` story (VERDICT r3 next #3
-— "multi-host from paper to process"):
+this module is the framework's `jax.distributed` story:
 
   * :func:`initialize` wraps ``jax.distributed.initialize`` so every process
     joins one JAX runtime; afterwards ``jax.devices()`` is the GLOBAL device
-    list and meshes span hosts (ICI within a host, DCN between).
+    list and meshes span hosts.
   * :class:`MultiHostStreamVO` extends the config-4 driver so that each
-    process feeds ONLY its host-local streams — ingest never crosses DCN;
+    process feeds ONLY its host-local streams — ingest never crosses hosts;
     the stream axis of the mesh places whole streams on single devices, so
     tracking computation needs no cross-host collectives at all, and the
-    only DCN traffic is program dispatch + whatever the caller gathers.
+    only cross-host traffic is program dispatch + whatever the caller gathers.
   * per-process readback: ``local_stream_indices`` + ``local_poses`` return
     the slice of results this host owns (no implicit global transfer).
 
 Validated end-to-end by ``scripts/multihost_dryrun.py``: 2 processes x 4
 virtual CPU devices each, per-process ingest, trajectories asserted
 identical to single-process runs, plus a cross-process psum (the sharded-BA
-reduction) over the global mesh. The same code drives real multi-host TPU
-slices, where ``initialize()`` picks up the TPU coordinator automatically.
+reduction) over the global mesh. It has not run on multiple GPU hosts:
+there ``initialize()`` needs the coordinator address, process count and
+process id passed explicitly.
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ from lvt_tpu.parallel.multistream import MultiStreamVO
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Join the global JAX runtime. On real TPU pods all arguments are
-    auto-detected from the TPU environment; on CPU/GPU fleets pass them
+    """Join the global JAX runtime. On CPU/GPU fleets pass every argument
     explicitly (coordinator = "host:port" of process 0)."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

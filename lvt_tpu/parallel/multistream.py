@@ -36,10 +36,8 @@ def batched_initial_state(config: VOConfig, n_streams: int) -> VOState:
 
 def _step_stereo_batched(states, imgs_left, imgs_right, config: VOConfig):
     """One frame for every stream. Feature extraction for all 2S images runs
-    as ONE batched perception pass (the Pallas kernel batches via its grid,
-    not vmap); the per-stream state machine is then vmapped, where lax.switch
-    lowers to compute-all-branches + select — the TPU-friendly trade of
-    deterministic compute for branchless batching."""
+    as ONE batched perception pass; the per-stream tracking body (one
+    predicated computation, core/step.track_features) is then vmapped."""
     from lvt_tpu.core import extract
 
     s = imgs_left.shape[0]

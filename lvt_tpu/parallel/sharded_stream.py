@@ -8,7 +8,7 @@ runs inside ONE ``shard_map``:
 
   * per-map-point work (projection, visibility, Hamming rows, counters,
     insert/cull) is local to its shard;
-  * the cross-shard quantities reduce over ICI — match counts and map sizes
+  * the cross-shard quantities reduce over the mesh — match counts and map sizes
     with `psum`, the one-to-one match claims with `pmin` over a combined
     (distance, global-index) key (ops/hamming.resolve_one_to_one), the PnP /
     windowed-BA normal equations with the Schur-style `psum` block reduction

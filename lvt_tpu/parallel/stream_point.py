@@ -1,6 +1,6 @@
 """2-D ``stream x points`` parallelism: many VO streams, each with a
-mesh-sharded local map — the pod-scale composition SCALING.md promises
-(configs 4+5 at once) and VERDICT r3 next #2 requires to actually execute.
+mesh-sharded local map — the composition SCALING.md describes
+(configs 4+5 at once).
 
 Layout on a ``Mesh((stream=NS, points=NP))``:
 
@@ -11,7 +11,7 @@ Layout on a ``Mesh((stream=NS, points=NP))``:
   * inside ONE ``shard_map`` over both axes, the per-device body vmaps the
     sharded-map tracking step over its local streams — the ``points``
     collectives (psum match counts, pmin one-to-one claims, psum'd PnP/BA
-    normal equations; see parallel/sharded_stream.py) ride ICI inside each
+    normal equations; see parallel/sharded_stream.py) stay inside each
     stream's point group, and the stream axis needs no collectives at all
     (streams are independent).
 

@@ -30,7 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from lvt_tpu.geometry import quaternion as quat
-from lvt_tpu.geometry.se3 import Pose
+from lvt_tpu.geometry.se3 import HIGHEST, Pose
 from lvt_tpu.solver import pnp as pnp_mod
 
 
@@ -44,13 +44,13 @@ class BAResult(NamedTuple):
 def _poses_to_w2c(poses: Pose):
     r_cw = quat.to_matrix(poses.q)            # [F, 3, 3]
     r_wc = jnp.swapaxes(r_cw, -1, -2)
-    t_wc = -jnp.einsum("fij,fj->fi", r_wc, poses.t)
+    t_wc = -jnp.einsum("fij,fj->fi", r_wc, poses.t, precision=HIGHEST)
     return r_wc, t_wc
 
 
 def _w2c_to_poses(r_wc, t_wc) -> Pose:
     r_cw = jnp.swapaxes(r_wc, -1, -2)
-    return Pose(-jnp.einsum("fij,fj->fi", r_cw, t_wc),
+    return Pose(-jnp.einsum("fij,fj->fi", r_cw, t_wc, precision=HIGHEST),
                 quat.from_matrix(r_cw))
 
 
@@ -135,7 +135,8 @@ def chi2_gate_weights(
     r_wc, t_wc = _poses_to_w2c(poses)
 
     def block_e2(obs_b, x_off):
-        p = (jnp.einsum("fij,mj->fmi", r_wc, points) + t_wc[:, None, :]
+        p = (jnp.einsum("fij,mj->fmi", r_wc, points, precision=HIGHEST)
+             + t_wc[:, None, :]
              + jnp.asarray([x_off, 0.0, 0.0], dtype))
         z = p[..., 2]
         inv_z = 1.0 / jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
@@ -193,7 +194,8 @@ def weighted_point_e2(
     r_wc, t_wc = _poses_to_w2c(poses)
 
     def block(obs_b, w_b, x_off):
-        p = (jnp.einsum("fij,mj->fmi", r_wc, points) + t_wc[:, None, :]
+        p = (jnp.einsum("fij,mj->fmi", r_wc, points, precision=HIGHEST)
+             + t_wc[:, None, :]
              + jnp.asarray([x_off, 0.0, 0.0], dtype))
         z = p[..., 2]
         inv_z = 1.0 / jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
@@ -259,7 +261,8 @@ def refine_window(
 
     def block_residuals(r_wc, t_wc, pts, obs_b, x_off):
         """Returns residual r [F,M,2] plus the quantities jacobians need."""
-        p_l = jnp.einsum("fij,mj->fmi", r_wc, pts) + t_wc[:, None, :]
+        p_l = (jnp.einsum("fij,mj->fmi", r_wc, pts, precision=HIGHEST)
+               + t_wc[:, None, :])
         p = p_l + jnp.asarray([x_off, 0.0, 0.0], dtype)
         z = p[..., 2]
         inv_z = 1.0 / jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
@@ -292,8 +295,8 @@ def refine_window(
             jnp.broadcast_to(jnp.eye(3, dtype=dtype), p_l.shape[:-1] + (3, 3)),
             -_skew(p_l),
         ], axis=-1)  # [F, M, 3, 6]
-        jc = jnp.einsum("fmij,fmjk->fmik", dpi, dp_dxi)
-        jp = jnp.einsum("fmij,fjk->fmik", dpi, r_wc)
+        jc = jnp.einsum("fmij,fmjk->fmik", dpi, dp_dxi, precision=HIGHEST)
+        jp = jnp.einsum("fmij,fjk->fmik", dpi, r_wc, precision=HIGHEST)
         return jc, jp
 
     def iteration(state: _BAState):
@@ -311,11 +314,15 @@ def refine_window(
             wr = w_b * pnp_mod._cauchy_weights(e2, delta2)
             jc, jp = block_jacobians(state.r_wc, p_l, p, inv_z)
             jc_w = jc * wr[..., None, None]
-            h_cc = h_cc + jnp.einsum("fmki,fmkj->fij", jc_w, jc)
-            h_cp = h_cp + jnp.einsum("fmki,fmkj->fmij", jc_w, jp)
-            h_pp = h_pp + jnp.einsum("fmki,fmkj,fm->mij", jp, jp, wr)
-            g_c = g_c + jnp.einsum("fmki,fmk->fi", jc_w, r)
-            g_p = g_p + jnp.einsum("fmki,fmk,fm->mi", jp, r, wr)
+            h_cc = h_cc + jnp.einsum("fmki,fmkj->fij", jc_w, jc,
+                                     precision=HIGHEST)
+            h_cp = h_cp + jnp.einsum("fmki,fmkj->fmij", jc_w, jp,
+                                     precision=HIGHEST)
+            h_pp = h_pp + jnp.einsum("fmki,fmkj,fm->mij", jp, jp, wr,
+                                     precision=HIGHEST)
+            g_c = g_c + jnp.einsum("fmki,fmk->fi", jc_w, r, precision=HIGHEST)
+            g_p = g_p + jnp.einsum("fmki,fmk,fm->mi", jp, r, wr,
+                                   precision=HIGHEST)
 
         h_cc = psum(h_cc)
         g_c = psum(g_c)
@@ -324,11 +331,14 @@ def refine_window(
         hpp_inv = _inv33(h_pp, lam)                            # [M, 3, 3]
 
         # Schur complement onto the camera block
-        hcp_hppinv = jnp.einsum("fmij,mjk->fmik", h_cp, hpp_inv)
-        s = -psum(jnp.einsum("fmik,gmjk->fgij", hcp_hppinv, h_cp))
+        hcp_hppinv = jnp.einsum("fmij,mjk->fmik", h_cp, hpp_inv,
+                                precision=HIGHEST)
+        s = -psum(jnp.einsum("fmik,gmjk->fgij", hcp_hppinv, h_cp,
+                             precision=HIGHEST))
         diag = h_cc + lam * jnp.eye(6, dtype=dtype)[None]
         s = s.at[jnp.arange(f_dim), jnp.arange(f_dim)].add(diag)
-        g_red = g_c - psum(jnp.einsum("fmik,mk->fi", hcp_hppinv, g_p))
+        g_red = g_c - psum(jnp.einsum("fmik,mk->fi", hcp_hppinv, g_p,
+                                      precision=HIGHEST))
 
         # gauge fix: the n_fixed_poses oldest poses held fixed (identity
         # rows/cols + zero rhs); fixing >= 2 poses also anchors the scale of
@@ -343,8 +353,7 @@ def refine_window(
         dc = jnp.linalg.solve(s_flat, -g_flat).reshape(f_dim, 6)
         dp = -jnp.einsum(
             "mij,mj->mi", hpp_inv,
-            g_p + jnp.einsum("fmij,fi->mj", h_cp, dc),
-        )
+            g_p + jnp.einsum("fmij,fi->mj", h_cp, dc, precision=HIGHEST), precision=HIGHEST)
 
         retr = jax.vmap(pnp_mod._retract)
         r_new, t_new = retr(state.r_wc, state.t_wc, dc)

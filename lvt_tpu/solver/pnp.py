@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment: robust Levenberg-Marquardt PnP on SE(3).
 
-TPU-native replacement for the reference's g2o stack (lvt/src/lvt_pnp_solver.cpp:
+Replacement for the reference's g2o stack (lvt/src/lvt_pnp_solver.cpp:
 44-128): one free camera vertex, fixed 3D points, monocular reprojection edges
 with identity information and a Cauchy robust kernel (delta = sqrt(5.991)),
 optimized with Levenberg-Marquardt in 2 passes of 5 iterations; after each
@@ -10,8 +10,8 @@ Here the entire "g2o equivalent" is ~100 lines of jnp: analytic 2x6 Jacobians,
 Cauchy reweighting, a 6x6 normal-equation solve, and `lax.fori_loop` for the
 fixed iteration schedule (no early exit under jit — rejected steps keep the
 state and only adapt lambda, exactly LM's behavior). All residuals across map
-points are batched; the per-iteration reduction J^T W J is a [6,6] einsum that
-XLA maps onto the MXU. The same accumulation is what shards over a device mesh
+points are batched; the per-iteration reduction J^T W J is a [6,6] einsum (a
+matrix product for XLA). The same accumulation is what shards over a device mesh
 with `psum` for the distributed-BA path (see lvt_tpu.parallel.ba).
 """
 
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from lvt_tpu.geometry import quaternion as quat
-from lvt_tpu.geometry.se3 import Pose
+from lvt_tpu.geometry.se3 import HIGHEST, Pose
 
 N_PASSES = 2          # lvt_pnp_solver.cpp:42 (#define N_PASSES 2)
 N_ITERS_PER_PASS = 5  # m_optimizer->optimize(5), lvt_pnp_solver.cpp:106
@@ -39,7 +39,7 @@ class PnPResult(NamedTuple):
 
 def _project_residuals(r_wc, t_wc, points, obs, fx, fy, cx, cy):
     """Residuals r = proj(p_cam) - obs and per-point camera coords."""
-    p_cam = points @ r_wc.T + t_wc
+    p_cam = jnp.matmul(points, r_wc.T, precision=HIGHEST) + t_wc
     z = p_cam[:, 2]
     safe_z = jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
     inv_z = 1.0 / safe_z
@@ -81,14 +81,15 @@ def _cauchy_weights(e2, delta2):
 def _retract(r_wc, t_wc, delta):
     """Apply xi = (v, w): R' = exp([w]x) R, t' = exp([w]x) t + v."""
     v, w = delta[:3], delta[3:]
-    theta2 = jnp.dot(w, w)
+    theta2 = jnp.dot(w, w, precision=HIGHEST)
     theta = jnp.sqrt(theta2 + 1e-20)
     half = 0.5 * theta
     # unit quaternion of the rotation increment (small-angle safe)
     sinc = jnp.where(theta < 1e-6, 0.5 - theta2 / 48.0, jnp.sin(half) / theta)
     dq = jnp.concatenate([jnp.cos(half)[None], sinc * w])
     dr = quat.to_matrix(quat.normalize(dq))
-    return dr @ r_wc, dr @ t_wc + v
+    return (jnp.matmul(dr, r_wc, precision=HIGHEST),
+            jnp.matmul(dr, t_wc, precision=HIGHEST) + v)
 
 
 class _LMState(NamedTuple):
@@ -120,7 +121,7 @@ def solve_pnp(
 
     With ``axis_name`` set, the point blocks are sharded over that mesh axis
     (inside shard_map) and every scalar reduction — H, g, chi2, inlier
-    count — is a `psum` over ICI: the distributed Schur-style block
+    count — is a `psum` over the mesh: the distributed Schur-style block
     reduction of SURVEY.md §2. Pose state stays replicated on every shard,
     so the LM loop needs no further communication.
     """
@@ -135,7 +136,7 @@ def solve_pnp(
     # optimize the world->camera transform
     r_cw = quat.to_matrix(initial_pose.q)
     r_wc0 = r_cw.T
-    t_wc0 = -r_wc0 @ initial_pose.t
+    t_wc0 = -jnp.matmul(r_wc0, initial_pose.t, precision=HIGHEST)
 
     def project(r_wc, t_wc):
         r, p_cam, inv_z = _project_residuals(
@@ -150,10 +151,10 @@ def solve_pnp(
     def lm_iteration(state: _LMState, w_mask):
         w = w_mask * _cauchy_weights(state.e2, delta2)
         jac = _jacobians(state.p_cam, state.inv_z, fx, fy)  # [M, 2, 6]
-        # H = sum w J^T J, g = sum w J^T r  (the MXU-friendly reduction)
+        # H = sum w J^T J, g = sum w J^T r  (one contraction over all points)
         jw = jac * w[:, None, None]
-        h = psum(jnp.einsum("mki,mkj->ij", jw, jac))
-        g = psum(jnp.einsum("mki,mk->i", jw, state.r))
+        h = psum(jnp.einsum("mki,mkj->ij", jw, jac, precision=HIGHEST))
+        g = psum(jnp.einsum("mki,mk->i", jw, state.r, precision=HIGHEST))
 
         step = jnp.linalg.solve(
             h + state.lam * jnp.eye(6, dtype=dtype), -g
@@ -181,7 +182,8 @@ def solve_pnp(
         r, p_cam, inv_z, e2 = project(r_wc, t_wc)
         w = w_mask * _cauchy_weights(e2, delta2)
         jac = _jacobians(p_cam, inv_z, fx, fy)
-        h_diag = psum(jnp.einsum("m,mki,mki->i", w, jac, jac))
+        h_diag = psum(jnp.einsum("m,mki,mki->i", w, jac, jac,
+                                precision=HIGHEST))
         lam0 = LM_TAU * jnp.max(h_diag) + 1e-12
         state = _LMState(
             r_wc, t_wc, lam0, jnp.asarray(2.0, dtype),
@@ -205,7 +207,8 @@ def solve_pnp(
     inlier_mask = w_mask > 0
     # back to camera-in-world
     r_cw = r_wc.T
-    pose = Pose(-r_cw @ t_wc, quat.from_matrix(r_cw))
+    pose = Pose(-jnp.matmul(r_cw, t_wc, precision=HIGHEST),
+                quat.from_matrix(r_cw))
     return PnPResult(
         pose=pose,
         inlier_mask=inlier_mask,

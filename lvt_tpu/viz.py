@@ -4,7 +4,7 @@ Equivalent in capability to the reference's ``lvt_visualization``
 (lvt/src/lvt_visualization.cpp): 2D feature overlays colored by map-point age
 with unmatched features as white boxes (:99-135), and the 3D map view (map
 points, staged points, camera frustum trail, :137-322). The reference renders
-live via OpenCV highgui + Pangolin/OpenGL; a TPU framework renders to files
+live via OpenCV highgui + Pangolin/OpenGL; this framework renders to files
 (PNG via matplotlib) from the VOState pytree — nothing here touches the
 device hot path.
 """

@@ -1,6 +1,6 @@
 """Browsable 3-D trajectory/map viewer: one self-contained HTML file.
 
-The TPU-era answer to the reference's live Pangolin window
+This framework's answer to the reference's live Pangolin window
 (lvt/src/lvt_visualization.cpp:137-349): the hot path stays clean — per
 tracked frame a tiny host-side snapshot (pose + valid map/staged points) is
 appended, and ``write_viewer`` emits a single HTML file with the data

@@ -1,14 +1,15 @@
-"""Windowed-BA accuracy delta in the integrated pipeline (VERDICT r3 #5).
+"""Windowed-BA accuracy delta in the integrated pipeline.
 
 Runs the SAME scenario frames through lvt_tpu with local_ba_window=0 and =4
 and prints ATE/RPE/rot for both, plus the oracle golden for reference.
 Feeds the BASELINE.md windowed-BA row.
 
-Usage: PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python scripts/ba_accuracy_report.py [scenario ...]
+Usage: JAX_PLATFORMS=cpu python scripts/ba_accuracy_report.py [scenario ...]
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import sys
 
@@ -16,43 +17,21 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from lvt_tpu.config import VOConfig
-from lvt_tpu.core.system import SensorType, VOSystem
-from lvt_tpu.geometry import quaternion as quat
-from lvt_tpu.io.synthetic import ate_rmse
-from lvt_tpu.io.trajectory import rot_rmse_deg, rpe_rmse
-from tools.oracle.scenarios import by_name
-
-GOLDEN = pathlib.Path(__file__).resolve().parents[1] / "tests" / "golden"
+from tools.oracle.scenarios import GOLDEN_DIR, by_name, parity_rows, run_lvt
 
 
 def run(sc, ba_window: int):
-    world = sc.world()
-    cfg = VOConfig(
-        fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
-        baseline=world.baseline, img_width=world.width,
-        img_height=world.height, use_pallas_perception=False,
-        local_ba_window=ba_window,
-    )
-    vo = VOSystem(cfg, SensorType.RGBD if sc.sensor == "rgbd"
-                  else SensorType.STEREO)
-    est, est_r, gt, gt_r = [], [], [], []
-    for a, b, (r, t) in sc.frames():
-        pose = vo.track(a, b)
-        est.append(np.asarray(pose.t))
-        est_r.append(np.asarray(quat.to_matrix(pose.q)))
-        gt.append(t)
-        gt_r.append(r)
-    est, gt = np.array(est), np.array(gt)
-    return (ate_rmse(est, gt), rpe_rmse(est, gt),
-            rot_rmse_deg(np.array(est_r), np.array(gt_r)))
+    """(ATE, RPE(1), rot) of lvt_tpu on the scenario's frames."""
+    sc = dataclasses.replace(
+        sc, vo_overrides=(("local_ba_window", ba_window),))
+    return tuple(row[1] for row in parity_rows(sc, *run_lvt(sc)))
 
 
 def main():
     names = sys.argv[1:] or ["noisy", "textured", "tex_lowtex"]
     for name in names:
         sc = by_name(name)
-        g = np.load(GOLDEN / f"{name}.npz")
+        g = np.load(GOLDEN_DIR / f"{name}.npz")
         off = run(sc, 0)
         on = run(sc, 4)
         print(f"{name:12s} oracle ATE {float(g['ate']):7.4f}  "

@@ -23,7 +23,7 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from lvt_tpu.io.synthetic import SyntheticWorld, ate_rmse
-from tools.oracle import OracleVO, OracleParams
+from tools.oracle.system import OracleVO, OracleParams
 
 
 def main():

@@ -21,7 +21,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from lvt_tpu.io.synthetic import ate_rmse
 from lvt_tpu.io.trajectory import rot_rmse_deg, rpe_rmse
-from tools.oracle import OracleVO, OracleParams
+from tools.oracle.system import OracleVO, OracleParams
 from tools.oracle.scenarios import SCENARIOS, by_name
 
 GOLDEN_DIR = pathlib.Path(__file__).resolve().parents[1] / "tests" / "golden"

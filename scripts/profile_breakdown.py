@@ -5,7 +5,11 @@ Times progressively larger prefixes of the tracking pipeline on a realistic
 effects. Perf tool, not a test.
 """
 
+import pathlib
+import sys
 import time
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +28,9 @@ def timeit(fn, *args, n=30, warmup=3):
 
 
 def main():
+    from lvt_tpu import runtime
+
+    runtime.require_gpu()   # times the device; never the CPU
     import __graft_entry__ as ge
     from lvt_tpu.core import extract as ex, step as step_mod
     from lvt_tpu.core.state import VOState

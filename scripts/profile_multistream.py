@@ -4,7 +4,11 @@ Compares the vmapped multistream chunk against S x the single-stream chunk
 cost to localize vmap pathologies. Perf tool.
 """
 
+import pathlib
+import sys
 import time
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,9 @@ def timeit(fn, *args, n=5, warmup=1):
 
 
 def main():
+    from lvt_tpu import runtime
+
+    runtime.require_gpu()   # times the device; never the CPU
     import __graft_entry__ as ge
     from lvt_tpu.core import step as step_mod
     from lvt_tpu.core.state import VOState

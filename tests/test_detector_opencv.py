@@ -1,4 +1,4 @@
-"""Detector-level parity vs OpenCV (VERDICT r3 next #4a): lvt_tpu's FAST
+"""Detector-level parity vs OpenCV: lvt_tpu's FAST
 corner recall/precision and localization RMS against cv2.FastFeatureDetector
 (9/16, nonmaxSuppression=True) on TexturedWorld frames, with thresholds.
 

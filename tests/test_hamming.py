@@ -31,6 +31,17 @@ def test_hamming_zero_and_full(rng):
     np.testing.assert_array_equal(np.diag(d2), 256)
 
 
+def test_matmul_hamming_is_exact(rng):
+    """The +-1 bf16 product path (config.hamming_matmul) is bit-identical
+    to XOR+popcount: every partial sum is an integer <= 256."""
+    a = jnp.asarray(rand_desc(rng, 64))
+    b = jnp.asarray(rand_desc(rng, 96))
+    np.testing.assert_array_equal(
+        np.asarray(hamming.hamming_matrix(a, b, matmul=True)),
+        np.asarray(hamming.hamming_matrix(a, b)),
+    )
+
+
 def test_masked_top2():
     dist = jnp.array([[5, 3, 9, 1], [7, 2, 2, 8]], jnp.int32)
     mask = jnp.array([[1, 1, 1, 0], [0, 1, 1, 0]], bool)

@@ -1,4 +1,4 @@
-"""De-circularized checks vs OpenCV for matching and PnP (VERDICT r4 #6).
+"""De-circularized checks vs OpenCV for matching and PnP.
 
 The oracle (tools/oracle) shares our BRIEF pattern and acceptance rules, so
 oracle-parity alone cannot catch a bug present in both. These tests anchor

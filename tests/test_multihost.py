@@ -1,4 +1,4 @@
-"""Multi-host execution (VERDICT r3 next #3): 2 jax.distributed processes x
+"""Multi-host execution: 2 jax.distributed processes x
 4 virtual CPU devices, host-local ingest, trajectories identical to the
 single-process run, cross-process psum in the sharded-BA reduction.
 

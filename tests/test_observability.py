@@ -87,7 +87,7 @@ def test_named_scope_stage_markers_exist():
 def test_record_chunk_matches_per_frame_rows(tmp_path):
     """track_chunk with a recorder attached must produce the SAME rows as N
     track calls, via ONE host transfer per series (record_chunk) rather than
-    N per-frame device slices (VERDICT r3 weak #6)."""
+    N per-frame device slices."""
     world = make_world()
     cfg = make_config(world)
     frames = list(world.stereo_sequence(6, speed=0.4))

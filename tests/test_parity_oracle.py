@@ -5,35 +5,22 @@ drivers (SURVEY.md §4; kitti_example.cpp:33-47). Here: a faithful CPU oracle
 of the reference pipeline (tools/oracle) was run over deterministic
 synthetic-world scenarios by scripts/make_goldens.py and its trajectories +
 ATE stored under tests/golden/. This test runs lvt_tpu over the SAME frames
-and asserts its ATE is within margin of the oracle's — proving the TPU-native
+and asserts its ATE is within margin of the oracle's — proving the
 re-design tracks at least as accurately as the reference behavior.
+chip_smoke.py runs the same scenarios through the same code on the GPU.
 """
 
 from __future__ import annotations
 
-import pathlib
-
 import numpy as np
 import pytest
 
-from lvt_tpu.config import VOConfig
-from lvt_tpu.core.system import SensorType, VOSystem
-from lvt_tpu.geometry import quaternion as quat
-from lvt_tpu.io.synthetic import ate_rmse
-from lvt_tpu.io.trajectory import rot_rmse_deg, rpe_rmse
-from tools.oracle.scenarios import SCENARIOS
-
-GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
-
-
-def _config(sc) -> VOConfig:
-    world = sc.world()
-    return VOConfig(
-        fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
-        baseline=world.baseline, img_width=world.width,
-        img_height=world.height, use_pallas_perception=False,
-        **dict(sc.vo_overrides),
-    )
+from tools.oracle.scenarios import (
+    GOLDEN_DIR,
+    SCENARIOS,
+    parity_rows,
+    run_lvt,
+)
 
 
 @pytest.mark.parametrize(
@@ -46,53 +33,11 @@ def test_trajectory_within_oracle_margin(sc):
     """Three parity axes against the stored oracle run on identical frames:
     absolute trajectory error, 1-frame relative pose error (local drift),
     and rotation RMSE — each bounded by oracle * rel_margin + abs."""
-    golden_path = GOLDEN_DIR / f"{sc.name}.npz"
-    assert golden_path.exists(), (
-        f"golden fixture missing; run scripts/make_goldens.py {sc.name}"
-    )
-    golden = np.load(golden_path)
-    assert int(golden["n_frames"]) == sc.n_frames, "fixture out of date"
-
-    sensor = SensorType.RGBD if sc.sensor == "rgbd" else SensorType.STEREO
-    vo = VOSystem(_config(sc), sensor)
-    if sc.reset_on_lost:
-        from lvt_tpu.core.system import TrackingState
-        from tools.oracle.scenarios import run_with_reset_on_lost
-
-        def track(a, b):
-            pose = vo.track(a, b)
-            return (np.asarray(quat.to_matrix(pose.q)),
-                    np.asarray(pose.t))
-
-        est_r, est, gt_r, gt, went_lost = run_with_reset_on_lost(
-            track, vo.get_state, vo.reset, sc.frames(),
-            lost_state=TrackingState.LOST,
-        )
-        est_r = list(est_r)
-        assert went_lost, "blackout never caused LOST"
-        assert vo.get_state() == TrackingState.TRACKING, "did not recover"
-    else:
-        est, est_r, gt, gt_r = [], [], [], []
-        for a, b, (r, t) in sc.frames():
-            pose = vo.track(a, b)
-            est.append(np.asarray(pose.t))
-            est_r.append(np.asarray(quat.to_matrix(pose.q)))
-            gt.append(t)
-            gt_r.append(r)
-        est, gt = np.array(est), np.array(gt)
-    checks = [
-        ("ATE", ate_rmse(est, gt), float(golden["ate"]), sc.abs_margin, "m"),
-        ("RPE(1)", rpe_rmse(est, gt), float(golden["rpe"]),
-         sc.rpe_abs_margin, "m"),
-        ("rot", rot_rmse_deg(np.array(est_r), np.array(gt_r)),
-         float(golden["rot"]), sc.rot_abs_margin, "deg"),
-    ]
     failures = [
         f"{name}: lvt_tpu {ours:.4f} {unit} > bound "
-        f"{oracle * sc.rel_margin + abs_m:.4f} {unit} "
-        f"(oracle {oracle:.4f} {unit})"
-        for name, ours, oracle, abs_m, unit in checks
-        if ours > oracle * sc.rel_margin + abs_m
+        f"{bound:.4f} {unit} (oracle {oracle:.4f} {unit})"
+        for name, ours, bound, oracle, unit in parity_rows(sc, *run_lvt(sc))
+        if ours > bound
     ]
     assert not failures, f"{sc.name}: " + "; ".join(failures)
 
@@ -122,11 +67,11 @@ def test_descriptor_level_parity(rng):
         feat.desc_bytes_to_words(desc_bytes).astype(np.uint32))
 
     kp_arr = jnp.asarray(np.stack([xs, ys], -1).astype(np.float32))
-    d_tpu, valid = brief.compute_descriptors(
+    d_lvt, valid = brief.compute_descriptors(
         jnp.asarray(img, jnp.float32), kp_arr, jnp.ones(k, bool))
     assert np.asarray(valid).all()
 
-    ham = np.diag(np.asarray(hamming_matrix(words_oracle, d_tpu)))
+    ham = np.diag(np.asarray(hamming_matrix(words_oracle, d_lvt)))
     assert (ham <= 3).all(), ham.max()
     assert np.median(ham) == 0
 

@@ -1,15 +1,11 @@
-"""Patch-extraction kernel + patch descriptor mode (ops/patches_pallas).
+"""Patch descriptor mode (ops/patches).
 
-Three equivalence layers, mirroring the strategy of
-tests/test_pallas_perception.py:
-  1. the Pallas kernel (interpret mode) against the pure-XLA reference;
-  2. patch-based descriptors/subpixel against the established sparse/
+Two equivalence layers:
+  1. patch-based descriptors/subpixel against the established sparse/
      scatter lowerings (bit-identical at valid keypoints);
-  3. the full extraction pipeline in "patch" mode against "dense" mode.
-On-hardware validation is scripts/tpu_smoke.py (kernels ON vs OFF).
+  2. the full extraction pipeline in "patch" mode against "dense" mode.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,47 +13,12 @@ import pytest
 from lvt_tpu.config import VOConfig
 from lvt_tpu.core import extract
 from lvt_tpu.ops import brief, detect
-from lvt_tpu.ops import patches_pallas as pt
+from lvt_tpu.ops import patches as pt
 
 
 @pytest.fixture
 def rng():
     return np.random.RandomState(7)
-
-
-def _random_setup(rng, h=96, w=256, k=40):
-    # padded-map alignment contract: h % 8 == 0, w % 128 == 0
-    smooth = rng.rand(2, h, w).astype(np.float32) * 20000.0
-    raw = rng.rand(2, h, w).astype(np.float32) * 100.0
-    x = rng.randint(pt.PATCH_C0, w - pt.PATCH + pt.PATCH_C0 + 1, (2, k))
-    y = rng.randint(pt.PATCH_R0, h - pt.PATCH + pt.PATCH_R0 + 1, (2, k))
-    valid = rng.rand(2, k) > 0.3
-    return (jnp.asarray(smooth), jnp.asarray(raw),
-            jnp.asarray(x, jnp.int32), jnp.asarray(y, jnp.int32),
-            jnp.asarray(valid))
-
-
-def test_kernel_matches_xla_reference(rng):
-    smooth, raw, x, y, valid = _random_setup(rng)
-    p_ref, rp_ref = pt.extract_patches_xla(smooth, raw, x, y, valid)
-    p_ker, rp_ker = pt.extract_patches_batched(smooth, raw, x, y, valid,
-                                               interpret=True)
-    k = x.shape[1]
-    np.testing.assert_array_equal(np.asarray(p_ker)[:, :k], np.asarray(p_ref))
-    np.testing.assert_array_equal(np.asarray(rp_ker)[:, :k],
-                                  np.asarray(rp_ref))
-
-
-def test_kernel_pads_odd_keypoint_counts(rng):
-    k = pt.CHUNK + 17
-    smooth, raw, x, y, valid = _random_setup(rng, k=k)
-    p_ref, rp_ref = pt.extract_patches_xla(smooth, raw, x, y, valid)
-    p_ker, rp_ker = pt.extract_patches_batched(smooth, raw, x, y, valid,
-                                               interpret=True)
-    assert p_ker.shape[1] == 2 * pt.CHUNK  # stays CHUNK-padded
-    np.testing.assert_array_equal(np.asarray(p_ker)[:, :k], np.asarray(p_ref))
-    np.testing.assert_array_equal(np.asarray(rp_ker)[:, :k],
-                                  np.asarray(rp_ref))
 
 
 def test_descriptors_from_patches_match_sparse(rng):
@@ -115,8 +76,7 @@ def test_full_extraction_patch_vs_dense_modes():
     base = VOConfig(
         fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
         baseline=world.baseline, img_width=world.width,
-        img_height=world.height, use_pallas_perception=False,
-        detection_cell_size=64, max_keypoints_per_cell=32,
+        img_height=world.height, detection_cell_size=64, max_keypoints_per_cell=32,
     )
     feats_dense = extract.extract_features_batched(
         imgs, base.replace(descriptor_mode="dense"))

@@ -1,7 +1,7 @@
 """Faithful CPU oracle of the reference LVT pipeline (SAR-Research-Lab/lvt).
 
 A behavior-level Python/OpenCV/NumPy reimplementation of the reference
-C++ system, built to (a) generate golden trajectories that the TPU-native
+C++ system, built to (a) generate golden trajectories that the lvt_tpu
 framework is regression-tested against, and (b) measure the reference
 pipeline's single-thread CPU throughput as the benchmark denominator
 (BASELINE.md). Every module cites the reference file:line it mirrors.
@@ -22,6 +22,7 @@ Known, documented divergences from the reference binary:
     OptimizationAlgorithmLevenberg schedule (tau=1e-5 initial lambda,
     rho-based lambda update) on the same robustified problem
     (lvt_pnp_solver.cpp:44-128) in float64.
-"""
 
-from tools.oracle.system import OracleVO, OracleParams  # noqa: F401
+The package root imports nothing, so tools.oracle.scenarios loads without
+OpenCV (only the oracle itself needs it: tools.oracle.system).
+"""

@@ -19,6 +19,7 @@ Two image models:
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 from typing import Iterator
 
 import numpy as np
@@ -168,14 +169,91 @@ SCENARIOS = (
     # constant offset afterwards; parity margins absorb the common loss.
     Scenario("lost_recovery", n_frames=60, speed=0.6, blackout=(25, 29),
              reset_on_lost=True),
-    # ---- windowed BA enabled in the INTEGRATED pipeline (VERDICT r3 next
-    # #5): same frames as "noisy"; the oracle golden is BA-less (the
-    # reference never refines structure), so this pins the accuracy of the
+    # ---- windowed BA enabled in the INTEGRATED pipeline: same frames as
+    # "noisy"; the oracle golden is BA-less (the reference never refines
+    # structure), so this pins the accuracy of the
     # beyond-parity feature against the same bar, and
     # scripts/ba_accuracy_report.py quantifies the delta vs BA-off
     Scenario("noisy_ba", n_frames=80, noise_sigma=4.0,
              vo_overrides=(("local_ba_window", 4),)),
 )
+
+
+GOLDEN_DIR = pathlib.Path(__file__).resolve().parents[2] / "tests" / "golden"
+
+
+def lvt_config(sc: Scenario):
+    """The lvt_tpu VOConfig a scenario runs: its world's camera plus the
+    scenario's vo_overrides."""
+    from lvt_tpu.config import VOConfig
+
+    world = sc.world()
+    return VOConfig(
+        fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy,
+        baseline=world.baseline, img_width=world.width,
+        img_height=world.height, **dict(sc.vo_overrides),
+    )
+
+
+def run_lvt(sc: Scenario, frames=None):
+    """Track a scenario's frames (default: ``sc.frames()``) through
+    lvt_tpu's VOSystem, one ``track`` call per frame. Returns
+    (est_t, est_r, gt_t, gt_r) arrays. Reset-on-lost scenarios must go LOST
+    and end TRACKING (AssertionError otherwise)."""
+    from lvt_tpu.core.system import SensorType, TrackingState, VOSystem
+    from lvt_tpu.geometry import quaternion as quat
+
+    frames = sc.frames() if frames is None else frames
+    sensor = SensorType.RGBD if sc.sensor == "rgbd" else SensorType.STEREO
+    vo = VOSystem(lvt_config(sc), sensor)
+
+    def track(a, b):
+        pose = vo.track(a, b)
+        return np.asarray(quat.to_matrix(pose.q)), np.asarray(pose.t)
+
+    if sc.reset_on_lost:
+        est_r, est, gt_r, gt, went_lost = run_with_reset_on_lost(
+            track, vo.get_state, vo.reset, frames,
+            lost_state=TrackingState.LOST,
+        )
+        assert went_lost, "blackout never caused LOST"
+        assert vo.get_state() == TrackingState.TRACKING, "did not recover"
+        return est, est_r, gt, gt_r
+    est, est_r, gt, gt_r = [], [], [], []
+    for a, b, (r, t) in frames:
+        rot, pos = track(a, b)
+        est.append(pos)
+        est_r.append(rot)
+        gt.append(t)
+        gt_r.append(r)
+    return np.array(est), np.array(est_r), np.array(gt), np.array(gt_r)
+
+
+def parity_rows(sc: Scenario, est, est_r, gt, gt_r):
+    """The three parity axes against the stored oracle run on identical
+    frames: absolute trajectory error, 1-frame relative pose error (local
+    drift) and rotation RMSE, each bounded by oracle * rel_margin + abs.
+    Returns [(axis, ours, bound, oracle, unit)]."""
+    from lvt_tpu.io.synthetic import ate_rmse
+    from lvt_tpu.io.trajectory import rot_rmse_deg, rpe_rmse
+
+    golden_path = GOLDEN_DIR / f"{sc.name}.npz"
+    assert golden_path.exists(), (
+        f"golden fixture missing; run scripts/make_goldens.py {sc.name}"
+    )
+    golden = np.load(golden_path)
+    assert int(golden["n_frames"]) == sc.n_frames, "fixture out of date"
+    rows = []
+    for axis, ours, key, abs_m, unit in (
+        ("ATE", ate_rmse(est, gt), "ate", sc.abs_margin, "m"),
+        ("RPE(1)", rpe_rmse(est, gt), "rpe", sc.rpe_abs_margin, "m"),
+        ("rot", rot_rmse_deg(np.array(est_r), np.array(gt_r)), "rot",
+         sc.rot_abs_margin, "deg"),
+    ):
+        oracle = float(golden[key])
+        rows.append((axis, ours, oracle * sc.rel_margin + abs_m, oracle,
+                     unit))
+    return rows
 
 
 def by_name(name: str) -> Scenario:
